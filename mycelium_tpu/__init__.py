@@ -1,11 +1,11 @@
-"""mycelium_tpu — a TPU-native rebuild of the mycelium growth + FEA pipeline.
+"""mycelium_tpu — a JAX rebuild of the mycelium growth + FEA pipeline.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the
-`mycelium-fea-project` reference (see SURVEY.md): a lattice-free stochastic
-model of fungal network growth coupled to a quasi-static tensile FEA pass,
-rebuilt TPU-first — fixed-capacity jit-compiled growth state, matrix-free
-sparse solves on the MXU/VPU, and `shard_map` data parallelism in place of
-PETSc/MPI.
+A JAX/XLA framework with the capabilities of the `mycelium-fea-project`
+reference (see SURVEY.md): a lattice-free stochastic model of fungal
+network growth coupled to a quasi-static tensile FEA pass — fixed-capacity
+jit-compiled growth state, matrix-free preconditioned sparse solves, and
+`shard_map` data parallelism in place of PETSc/MPI. It runs on an NVIDIA
+GPU (tests run on the CPU).
 """
 
 from . import config, scenes

@@ -1,8 +1,6 @@
 """Coupled-pipeline benchmark: grow -> export mesh -> assemble -> pull test.
 
-The BASELINE.json north star asks for the coupled grow+assemble+solve
-pipeline at 1e5+ DOF to beat the 4-rank PETSc CPU baseline by >50x on one
-chip. No archived reference artifact runs the coupled pipeline at that
+No archived reference artifact runs the coupled pipeline at 1e5+ DOF
 scale (BASELINE.md: the largest archived solve is 22,125 DOF), so the
 reference cost is extrapolated from its measured parts:
 
@@ -15,7 +13,8 @@ reference cost is extrapolated from its measured parts:
             scaled linearly in DOF.
 
 Run:  python -m mycelium_tpu.bench.coupled [preset]   (presets from
-growth_scale: demo | medium | large). Prints one JSON line.
+growth_scale: demo | medium | large | xlarge). Prints one JSON line.
+Needs a GPU; the row names the device it ran on.
 """
 
 from __future__ import annotations
@@ -35,11 +34,13 @@ def _note(msg: str) -> None:
 
 
 def run(preset: str = "medium", fea_steps: int = 40):
+    from ..device import device_info, require_gpu
     from ..fea.ramp import run_ramp_scan, truncate_after_fracture
     from ..growth.export import state_mesh
     from ..growth.step import run_growth_chunked, run_growth_scan
     from ..utils import enable_compilation_cache
 
+    require_gpu()
     enable_compilation_cache()
     gcfg = PRESETS[preset]
     if gcfg.max_segments >= 1 << 20:
@@ -55,7 +56,7 @@ def run(preset: str = "medium", fea_steps: int = 40):
     # The chunked driver's program unit is one chunk, so one chunk warms
     # it — run with the IDENTICAL static cfg (a replace(cfg, t_steps=10)
     # warm-up leaves the timed run's first chunk to re-trace the whole
-    # program: 64 s at xlarge, round-5 growth_scale fix)
+    # program)
     if gcfg.max_segments >= 1 << 20:
         from ..growth import init_state
         from ..growth.step import _scan_growth_chunk
@@ -93,9 +94,7 @@ def run(preset: str = "medium", fea_steps: int = 40):
     # the production bench driver, bench.py ramp leg); its chunk program
     # bakes the record-buffer shapes, so the warm-up runs the FULL ramp
     # once (the persistent cache makes repeats near-free).
-    big = (getattr(model, "tree_packed_big", None) is not None
-           or model.n_nodes > (1 << 18))
-    if big:
+    if model.n_nodes > (1 << 18):
         from ..fea.ramp import run_ramp_async
         ramp_fn = lambda: run_ramp_async(coords, conn, fcfg,  # noqa: E731
                                          model=model)
@@ -114,19 +113,21 @@ def run(preset: str = "medium", fea_steps: int = 40):
     ref_fea_s = 71.76 * (n_dof / 22125.0)
     ref_s = ref_growth_s + ref_fea_s
 
-    row = {
+    row = device_info()
+    row.update({
         "metric": f"coupled_pipeline_{preset}",
-        "value": round(wall, 3),
+        "value": wall,
         "unit": "s",
-        "vs_baseline": round(ref_s / wall, 2),
+        "vs_baseline": ref_s / wall,
         "segments": n_seg,
         "n_dof": n_dof,
-        "growth_s": round(t_growth, 3),
-        "export_s": round(t_export, 3),
-        "fea_s": round(t_fea, 3),
+        "growth_s": t_growth,
+        "export_s": t_export,
+        "plan_s": t_plan,
+        "fea_s": t_fea,
         "fea_steps_recorded": int(res.disp_record.shape[0]),
-        "ref_extrapolated_s": round(ref_s, 1),
-    }
+        "ref_extrapolated_s": ref_s,
+    })
     print(json.dumps(row))
     return row
 

@@ -262,7 +262,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-process run: call jax.distributed.initialize "
                         "before any computation (coordinator/process id "
                         "from JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/"
-                        "JAX_PROCESS_ID, or auto-discovered on TPU pods); "
+                        "JAX_PROCESS_ID, all three required; each process "
+                        "takes the card JAX_LOCAL_DEVICE_IDS names, by "
+                        "default the one numbered like its process id); "
                         "result files are written by process 0 only — the "
                         "mpirun -np N role of the reference parallel "
                         "binary, without its every-rank-writes bug")
@@ -324,7 +326,7 @@ def build_parser() -> argparse.ArgumentParser:
         g.add_argument("--preset", choices=["fast", "reference"],
                        default="fast",
                        help="solver preset: 'fast' = chain operator + tree "
-                            "preconditioner (+ Pallas kernel on TPU); "
+                            "preconditioner + cluster coarse grid; "
                             "'reference' = FeaConfig defaults (ELL + "
                             "block-Jacobi, the PETSc-shaped path)")
         if positional:

@@ -1,4 +1,4 @@
-"""Configuration pytrees for the TPU-native mycelium + FEA pipeline.
+"""Configuration pytrees for the JAX mycelium + FEA pipeline.
 
 The reference keeps all parameters as module-level constants with no config
 system (reference: src/mycelium_sim_2D.py:23-41, src/fea_solver.py:14-28).
@@ -51,7 +51,7 @@ class GrowthConfig:
     substrate_e0: float = 2e-6         # mol, initial cuboid nutrient E
     substrate_mu: float = 1e8          # uptake coefficient mu
 
-    # --- TPU-native additions (static shapes / kernel knobs) ---
+    # --- rebuild additions (static shapes / query knobs) ---
     max_segments: int = 1 << 14        # fixed segment capacity (slots)
     max_hyphae: int = 1 << 13          # fixed hypha capacity
     voxel_size: float = 0.1            # neighbor-grid cell size (call-site value,
@@ -64,9 +64,8 @@ class GrowthConfig:
     grid_incremental: bool = False     # persistent APPEND-ONLY cell grid of
                                        # finalized segments + per-step tip-
                                        # segment overlay, replacing the full
-                                       # per-step rebucket (a 2M-slot argsort
-                                       # + full-grid geometry gather, ~124 ms
-                                       # of the ~500 ms xlarge step). A
+                                       # per-step rebucket (an N-slot argsort
+                                       # + full-grid geometry gather). A
                                        # segment's geometry freezes when its
                                        # hypha extends past it (walls and
                                        # anastomosis mutate TIP slots only),
@@ -74,20 +73,13 @@ class GrowthConfig:
                                        # mutable tip segments live in the
                                        # overlay, rebuilt per step over H
                                        # rows instead of N. Forces the 'grid'
-                                       # query strategy on any backend.
+                                       # query strategy.
     grid_update_cap: int = 1 << 16     # chunk size of the incremental insert
                                        # batch; steps finalizing more than
                                        # this many segments loop more chunks.
                                        # Also the one-off resume path: a grid
                                        # rebuilt from a checkpoint inserts
                                        # the whole backlog in these chunks.
-    anast_kernel: bool = True          # run the anastomosis distance scan as
-                                       # the banded Pallas kernel
-                                       # (growth/pallas_anast.py) when the
-                                       # layout allows (grid_incremental,
-                                       # corner window, gz == 1, f32, TPU
-                                       # backend); False forces the XLA scan
-                                       # (bounded device code either way).
     dtype: str = "float32"
 
     @property
@@ -125,7 +117,7 @@ class FeaConfig:
     grip_length: float = 1.5           # mm, grip selection tolerance
     reg: float = 1e-12                 # diagonal regularization (fea_solver.py:125)
 
-    # --- solver knobs (TPU-native; replaces PETSc -ksp_type/-pc_type) ---
+    # --- solver knobs (replace PETSc -ksp_type/-pc_type) ---
     solver: str = "cg"                 # 'cg' | 'bicgstab' | 'gmres'
     precond: str = "block_jacobi"      # 'block_jacobi' | 'jacobi' | 'none'
                                        # | 'tree' (exact spanning-forest
@@ -138,7 +130,7 @@ class FeaConfig:
                                        # Galerkin coarse correction to the
                                        # tree PC (captures long-wavelength
                                        # coupling through anastomosis
-                                       # loops; XLA path only)
+                                       # loops)
     tree_reg_rel: float = 1e-5         # tree-PC diagonal floor, relative to
                                        # the median element stiffness: caps
                                        # the amplification of tree-floating
@@ -154,41 +146,26 @@ class FeaConfig:
                                        # floor to 1e-7 — the 1e-5 floor
                                        # sits ABOVE the soft bending modes
                                        # of long hyphae (~k_bd*(pi/len)^4)
-                                       # and inflates CG iterations ~2x at
-                                       # 1e5+ DOF (docs/PERFORMANCE.md)
+                                       # and inflates CG iterations at
+                                       # 1e5+ DOF
     tree_max_path_len: int = 128       # chop tree-schedule paths longer
                                        # than this (0 = unbounded): bounds
                                        # the PCR round count r =
-                                       # ceil(log2(max len)) that the
-                                       # whole-solve kernel's dominant VMEM
-                                       # term (2*r*9 coefficient planes)
-                                       # scales with, and keeps its shifts
-                                       # within one plane row
+                                       # ceil(log2(max len)), and with it
+                                       # the factor's 2*r*9 coefficient
+                                       # planes per slot
     tree_dense_tail: int = 256         # fold trailing elimination levels
                                        # whose combined slot count is below
                                        # this into ONE dense junction-Schur
                                        # inverse (0 = pure PCR): the tail
                                        # levels are tiny (9/2-slot shapes at
-                                       # 103k nodes) and their unrolled op
-                                       # chains stall the XLA TPU compile
-                                       # superlinearly past ~50k nodes,
-                                       # while a small dense inverse is one
-                                       # MXU matvec per PC apply. 256 beats
-                                       # the old 1024 at 309k DOF (cold 38
-                                       # -> 24 ms: the dim-2688 inverse was
-                                       # ~1/3 of the solve) and 64 loses it
-                                       # back to the extra PCR level
-                                       # (scripts/profile_solve_309k.py)
+                                       # 103k nodes), each level adds an
+                                       # unrolled op chain to the compiled
+                                       # factor, and a small dense inverse
+                                       # is one matvec per PC apply. Not yet
+                                       # re-derived on the GPU
     operator: str = "ell"              # 'ell' (gather-only SpMV) | 'scatter'
-                                       # | 'chain' (shift+MXU, TPU fast path)
-    use_pallas: bool = False           # run the whole PCG in one Pallas
-                                       # kernel (requires operator='chain',
-                                       # f32; TPU only)
-    pallas_vmem_limit_mb: float = 96.0  # VMEM budget for the whole-solve
-                                       # kernels' static tables; meshes
-                                       # whose tables exceed it silently
-                                       # fall back to the XLA (non-Pallas)
-                                       # solver path of the same numerics
+                                       # | 'chain' (shifts + jump matmuls)
     coarse_basis: str = "const"        # two-level PC coarse space per
                                        # chain cluster: 'const' |
                                        # 'linear' (adds an in-chain ramp).
@@ -200,35 +177,20 @@ class FeaConfig:
                                        # 128-position chain block to k
                                        # blocks so n_basis*3*ceil(nb/k)
                                        # stays under this. Uncapped, the
-                                       # on-device dense inverse grows as
-                                       # n/128*3 (7.7k x 7.7k at 330k
-                                       # nodes) and reproducibly CRASHES
-                                       # the TPU worker past ~4.7k dim —
-                                       # and would be 23k-dim at 1e6 nodes.
-                                       # 1536 halves the 309k assembly +
-                                       # inverse vs 3072 at the SAME 6 CG
-                                       # iterations; 768 buys nothing more
-                                       # (scripts/profile_solve_309k.py)
-    factor_kernel_min_slots: int = 512  # levels with at least this many
-                                       # slots run the fused Pallas PCR
-                                       # factor/apply kernels
-                                       # (fea/pallas_factor.py); smaller
-                                       # levels stay on the XLA plane
-                                       # algebra. The old 4096 floor left
-                                       # the 309k mesh's level-1 factor as
-                                       # a ~2k-op XLA dispatch tail (~5 ms
-                                       # of the 23.6 ms cold solve)
+                                       # dense inverse grows as n/128*3
+                                       # (7.7k x 7.7k at 330k nodes, 23k at
+                                       # 1e6). Not yet re-derived on the GPU
     gmres_restart: int = 32            # Arnoldi restart length for the
                                        # 'gmres' solver leg
     cg_restarts: int = 2               # tree-PC CG: on a plateau, rebuild
                                        # the Krylov space from the TRUE
                                        # residual b - K·x up to this many
                                        # times before accepting the floor
-                                       # (f32 recurrence drift pins the
-                                       # residual ~90x above the real
-                                       # floor at 340k nodes — measured;
-                                       # see solve.pcg). Weak-PC configs
-                                       # (sweep jacobi legs) ignore it.
+                                       # (f32 recurrence drift can pin the
+                                       # residual far above the real floor
+                                       # at 1e5+ nodes; see solve.pcg).
+                                       # Weak-PC configs (sweep jacobi
+                                       # legs) ignore it.
     rtol: float = 1e-8                 # CG relative residual tolerance
     atol: float = 0.0
     max_iter: int = 20000
@@ -252,17 +214,13 @@ class FeaConfig:
 
 def tuned_fea_config(**overrides) -> FeaConfig:
     """Performance solver preset: chain-ordered operator + spanning-forest
-    (tree) preconditioner, and the whole-solve Pallas kernel when running
-    on an accelerator in f32. Numerics are unchanged — CG converges to the
-    same displacement field (same rtol), it just takes ~60x fewer
-    iterations on mycelium meshes (see fea/tree.py).
+    (tree) preconditioner with the cluster coarse correction. Numerics are
+    unchanged — CG converges to the same displacement field (same rtol),
+    it just takes ~60x fewer iterations on mycelium meshes (see
+    fea/tree.py). The preset does not depend on the backend.
     """
     base = dict(operator="chain", precond="tree", tree_coarse_weight=0.25,
                 tree_reg_rel=1e-7)
-    if overrides.get("dtype", "float32") == "float32":
-        import jax
-        if jax.default_backend() != "cpu":
-            base["use_pallas"] = True
     base.update(overrides)
     return FeaConfig(**base)
 

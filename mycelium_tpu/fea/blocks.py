@@ -1,19 +1,15 @@
-"""Batched 3x3 block algebra as component-unrolled VPU math.
+"""Batched 3x3 block algebra as component-unrolled elementwise math.
 
-``jnp.einsum("nij,njk->nik")`` lowers to a batched ``dot_general`` whose
-TPU layout tiles the 3x3 operand dims into (4,128)/(8,128) registers —
-a measured 56.9x memory expansion per buffer: at 990k nodes one
-(973713,3,3) f32 product costs 1.86 GB padded and the tree-PC
-factorization asked the compiler for 31.85 G of 15.75 G HBM
-(RESOURCE_EXHAUSTED at compile). Unrolling the contraction of size 3
+``jnp.einsum("nij,njk->nik")`` lowers to a batched ``dot_general`` with
+a contraction of size 3, which a matrix unit cannot use and whose
+minor (3,3) dims pad badly in device layouts. Unrolling the contraction
 into elementwise multiply-adds on (n,) component planes keeps every
-buffer at its natural layout (batch dim on the lanes, ~1.3x padding)
-and turns the op into pure VPU work — there is no MXU win to give up
-at contraction size 3.
+buffer at its natural layout and turns the op into plain fused
+elementwise work.
 
 All products here are plain f32/f64 elementwise arithmetic, so they
-are exact at the array dtype and need no ``Precision.HIGHEST`` escape
-hatch (which the einsum forms required to avoid TPU bf16 passes).
+are exact at the array dtype whatever the backend's default matmul
+precision is (on a GPU that default is TF32 for f32 operands).
 """
 
 from __future__ import annotations
@@ -60,38 +56,26 @@ def mtv3(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
 
 def spd_inverse_ns(M: jnp.ndarray, phase1: int = 40,
                    polish: int = 3) -> jnp.ndarray:
-    """Newton–Schulz dense inverse for SPD matrices — a measured
-    ALTERNATIVE to ``jnp.linalg.inv`` in the preconditioner factors,
-    currently not on the default path: standalone LU looks like a
-    4-10 ms serial latency wall on TPU, but inside the bundled factor
-    program XLA hides most of it, and NS at the precision CG needs
-    (Precision.HIGH phase) measured ~5 ms SLOWER at 309k DOF
-    (scripts/profile_solve_309k.py). Kept unit-tested
+    """Newton–Schulz dense inverse for SPD matrices — an ALTERNATIVE to
+    ``jnp.linalg.inv`` (LU with partial pivoting, a serial-latency
+    algorithm) for the preconditioner factors, not on the default path.
+    The iteration X <- X(2I - MX) is two matmuls per step fused into one
+    fori_loop program. Kept unit-tested
     (test_fea_core.py::test_spd_inverse_ns_matches_lu) for solver work
-    where the inverse is NOT latency-hidden (e.g. a standalone
-    factorization dispatch).
-
-    LU with partial pivoting (what linalg.inv lowers to) is a SERIAL
-    latency wall on TPU: ~4-5 ms at ANY dimension up to a few thousand
-    (measured 4.6 ms at dim 618, 10.1 ms at 2688 — scripts/
-    profile_solve_309k.py). The iteration X <- X(2I - MX) is two MXU
-    matmuls per step fused into one fori_loop program, finishing in
-    well under 1 ms at those sizes.
+    where the inverse's latency is exposed.
 
     Robustness: M is symmetrically normalized to unit diagonal first
     (zero/negative diagonal entries — identity-padded grip rows — keep
     scale 1), and X0 = I/||A||_inf guarantees the spectrum of X0·A lies
     in (0, 1]. Convergence is then one error SQUARING per iteration:
     err_k = (1 - 1/kappa)^(2^k), so ``phase1`` = 40 covers kappa up to
-    ~1e10 before the dtype floor. The phase-1 matmuls run at
-    Precision.HIGH (3-pass bf16 ~ f32-quality products — single-pass
-    bf16 noise exceeds the 1/kappa contraction margin of the early
-    slow phase and DIVERGES the map for kappa beyond ~1e2: measured as
-    instant NaN on the 309k tail system) and ``polish``
-    highest-precision iterations square away the last rounding; the
-    final step symmetrizes so the result stays an SPD preconditioner
-    for CG. The achievable relative error is ~eps·kappa — the same
-    limit the f32 LU inverse it replaces has.
+    ~1e10 before the dtype floor. Every matmul runs at
+    Precision.HIGHEST: reduced-precision products (TF32 on a GPU) add
+    noise above the 1/kappa contraction margin of the early slow phase
+    and can diverge the map. ``polish`` further iterations square away
+    the last rounding and symmetrize, so the result stays an SPD
+    preconditioner for CG. The achievable relative error is ~eps·kappa —
+    the same limit an LU inverse of the same dtype has.
     """
     import jax
     n = M.shape[0]
@@ -103,14 +87,13 @@ def spd_inverse_ns(M: jnp.ndarray, phase1: int = 40,
     c = jnp.maximum(jnp.max(jnp.sum(jnp.abs(A), axis=1)),
                     jnp.asarray(1.0, dt))
     X = (jnp.eye(n, dtype=dt) / c)
-    h3 = jax.lax.Precision.HIGH
+    hi = jax.lax.Precision.HIGHEST
 
     def body1(_, X):
-        T = jnp.matmul(A, X, precision=h3)
-        return 2.0 * X - jnp.matmul(X, T, precision=h3)
+        T = jnp.matmul(A, X, precision=hi)
+        return 2.0 * X - jnp.matmul(X, T, precision=hi)
 
     X = jax.lax.fori_loop(0, phase1, body1, X)
-    hi = jax.lax.Precision.HIGHEST
 
     def body2(_, X):
         T = jnp.matmul(A, X, precision=hi)

@@ -9,7 +9,7 @@ clamped at 1e-12 to guard degenerate (coincident-node) elements.
 Everything here is batched over elements — the (E,6,6) stiffness batch feeds
 the explicit assembly path, while the *factored* form (unit direction n plus
 the two scalar stiffnesses k_ax, k_bd) feeds the matrix-free operator where
-a 6x6 matmul per element would waste MXU work: K_e·u is 9 fused multiply-adds
+a 6x6 matmul per element would waste work: K_e·u is 9 fused multiply-adds
 per element in factored form.
 """
 

@@ -7,12 +7,11 @@ fusion event, reference src/mycelium_sim_2D.py:507-542). Dropping the cycle
 edges leaves a TREE system, and SPD tree systems can be eliminated exactly
 with no fill beyond the tree itself. Used as a CG preconditioner, the
 exact forest solve takes the archived mesh from 872 iterations
-(block-Jacobi) to 9 (27 after 5% fracture) — measured, see
-docs/PERFORMANCE.md.
+(block-Jacobi) to 9 (27 after 5% fracture).
 
 The reference has no counterpart (PETSc ICC/GAMG are its strongest
 preconditioners, src/fea_petsc_solverAndPC.cpp:223); this module is the
-TPU-native answer: elimination is scheduled STATICALLY on the host into a
+rebuild's answer: elimination is scheduled STATICALLY on the host into a
 few levels of
 
   paths       maximal runs of degree<=2 nodes  -> block-tridiagonal solves
@@ -28,7 +27,7 @@ tree edge zeroes its coupling, splitting the path solve into independent
 halves — the schedule itself never changes for a given mesh.
 
 This file holds the host-side schedule builder and a numpy reference
-factor/apply (the oracle for the XLA and Pallas implementations).
+factor/apply (the oracle for the JAX implementation in tree_jax.py).
 """
 
 from __future__ import annotations
@@ -135,8 +134,8 @@ def build_tree_schedule(conn: np.ndarray, n_nodes: int,
     (max_path_len+1)-th node to the next level: the demoted nodes become
     this level's junctions and are chained together by the adjacent
     chunks' fill edges, i.e. ordinary two-level cyclic reduction. This
-    bounds the device PCR round count r = ceil(log2(max path len)) — the
-    dominant VMEM term of the whole-solve kernel scales linearly in r."""
+    bounds the device PCR round count r = ceil(log2(max path len)), and
+    the factor's coefficient storage, which scales linearly in r."""
     conn = np.asarray(conn, np.int64)
     free = np.asarray(free, bool)
     if tree_edge is None:

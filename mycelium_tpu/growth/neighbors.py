@@ -4,15 +4,13 @@ Replaces the reference's dict-based voxel hash (reference component C8,
 src/mycelium_sim_2D.py:465-501; int64-keyed C++ twin
 src/mycelium_sim_2D.cpp:185-231) with a DENSE cell grid over the dish:
 segments are bucketed into a static (G, G, Gz, C) table (one argsort + one
-scatter), and the neighborhood query aligns tip and segment buckets by
-ROLLING the small tip planes — on TPU a roll is a cheap relayout while
-per-tip window gathers are ~4-25 ns/row serial loops (the previous
-sort+searchsorted implementation spent ~110 ms/step in them). Tips are
-bucketed by their nearest grid CORNER, which shrinks the exact search
-window to the 2x2 cell block around it (see the grid-strategy comment in
-detect_anastomosis). Grid wrap-around from the rolls is harmless: wrapped
-candidates are physically far, so their true distances never pass the
-1e-3 mm tolerance.
+scatter). Two query strategies read it (detect_anastomosis): 'window'
+gathers each tip's neighbor-cell windows, 'grid' aligns tip and segment
+buckets by ROLLING the small tip planes, gather-free. In the 'grid' form
+tips are bucketed by their nearest grid CORNER, which shrinks the exact
+search window to the 2x2 cell block around it. Grid wrap-around from the
+rolls is harmless: wrapped candidates are physically far, so their true
+distances never pass the 1e-3 mm tolerance.
 
 Anastomosis (C9, src/mycelium_sim_2D.py:507-542): an active tip whose
 endpoint comes within tol of any other segment snaps to the closest point
@@ -35,12 +33,6 @@ import numpy as np
 
 from ..config import GrowthConfig
 from .state import ACTIVE, ANASTOMOSED, EMPTY, GrowthState
-
-def _anast_kernel_mode():
-    """'auto' (kernel on TPU-class backends), 'off', or 'interpret'
-    (force the kernel in Pallas interpret mode on CPU — test hook)."""
-    import os
-    return os.environ.get("MYC_ANAST_KERNEL", "auto")
 
 
 def grid_dims(cfg: GrowthConfig):
@@ -97,7 +89,7 @@ def _bucket(ids, cell, n_cells, cap, sentinel, want_pos=False):
     order = jnp.argsort(key)
     sc = key[order]
     # first-occurrence index of each run in the sorted keys via cummax
-    # (searchsorted costs ~2x an argsort on TPU; this is one scan)
+    # (one scan instead of a searchsorted)
     pos = jnp.arange(n, dtype=jnp.int32)
     run_start = jnp.concatenate([jnp.ones((1,), bool), sc[1:] != sc[:-1]])
     first = jax.lax.cummax(jnp.where(run_start, pos, 0))
@@ -122,7 +114,7 @@ class SegGrid(NamedTuple):
     (cfg.grid_incremental).
 
     Replaces the per-step full rebucket (an N-slot argsort + full-grid
-    geometry gather — ~124 ms of the ~500 ms xlarge step) with inserts of
+    geometry gather) with inserts of
     only the segments FINALIZED since the last step. A segment's geometry
     freezes the moment its hypha extends past it: walls
     (ops.enforce_walls) and anastomosis snaps mutate TIP slots only, so
@@ -140,9 +132,7 @@ class SegGrid(NamedTuple):
     Arrays are stored FLAT (P = GC*g*g) — the query reshapes them to
     (GC, g, g) views (free: contiguous row-major), and the insert loop
     works in flat index space, so a steady-state step with an empty
-    insert window costs no reshape/stack relayouts at all (the packed
-    (3, GC, g, g) form paid ~8 ms/step at xlarge just re-stacking
-    untouched planes).
+    insert window re-stacks no untouched planes.
     """
     ids: jnp.ndarray     # (P,) int32 segment slots; sentinel = N
     a: tuple             # 3 x (P,) segment start components
@@ -274,11 +264,13 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
 
     Two query strategies over the same dense cell table (identical
     candidate sets -> identical snaps up to distance ties):
-    - 'grid' (TPU default): roll the whole table for each neighbor offset;
-      distances are computed for every cell whether or not it holds tips —
-      wasteful in FLOPs but gather-free, which is what TPU wants;
-    - 'window' (CPU default): gather each tip's 9 neighbor-cell windows —
-      ~6x fewer distance evaluations, fine on CPU where gathers are cheap.
+    - 'grid': roll the whole table for each neighbor offset; distances are
+      computed for every cell whether or not it holds tips — more FLOPs,
+      but gather-free;
+    - 'window': gather each tip's 9 neighbor-cell windows — ~6x fewer
+      distance evaluations.
+    'window' is the default: on an H100 it measured 2-3x faster per
+    growth step than 'grid' at the demo and medium presets (PERF.md).
 
     With cfg.grid_incremental the 'grid' candidate table is NOT rebuilt
     per step: finalized segments live in the persistent append-only
@@ -288,12 +280,10 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
     rebuild is tested over whole trajectories
     (test_growth_ops.py::test_incremental_grid_*).
     """
-    import jax as _jax
     if strategy is None:
         # the persistent grid IS the candidate table -> 'grid' everywhere;
         # an EXPLICIT strategy still wins (tests cross-check paths)
-        strategy = ("grid" if cfg.grid_incremental else
-                    "window" if _jax.default_backend() == "cpu" else "grid")
+        strategy = "grid" if cfg.grid_incremental else "window"
     use_inc = bool(cfg.grid_incremental) and strategy == "grid"
     N, H = st.capacity, st.tip.shape[0]
     C = cfg.max_per_cell
@@ -332,8 +322,8 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
         d = jnp.where(invalid, big, d)
         dmin = jnp.min(d, axis=-1)
         # first-match one-hot select of the projection (take_along_axis
-        # would be another per-row gather; this stays pure VPU) — same
-        # cumsum-free reduction form as the grid scan (fusable on TPU)
+        # would be another per-row gather) — same cumsum-free reduction
+        # form as the grid scan
         hit = d <= dmin[..., None]
         kk = jax.lax.broadcasted_iota(jnp.int32, d.shape, d.ndim - 1)
         kmin = jnp.min(jnp.where(hit, kk, d.shape[-1]), axis=-1)
@@ -345,8 +335,7 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
                 jnp.where(better[..., None], pmin, best_proj))
 
     if strategy == "grid":
-        # Dense-grid query, shaped by four measured rules (the 315 ->
-        # ~80 ms/step xlarge rework):
+        # Dense-grid query, shaped by four rules:
         # 1. CORNER WINDOW: candidates within anastomosis_tol of a tip
         #    have midpoints within reach = (h0+tol)/2 + tol of it, and
         #    reach < voxel/2 — so bucketing TIPS by their nearest grid
@@ -357,14 +346,12 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
         # 2. Per offset the small TIP planes are rolled, never the
         #    segment geometry (7 planes, 4x larger).
         # 3. All per-item axes are MAJOR dims — planes are (slot, g, g),
-        #    so the (8,128) tile lands on the big (g,g) face and chunk
-        #    slicing never cuts a lane tile. (Minor dims of 3/64 forced
-        #    padded layouts/relayouts costing ~230 ms/step — the same
-        #    pathology as the tree-PC block algebra, fea/tree_jax.py.)
+        #    so the big (g,g) face is contiguous and chunk slicing never
+        #    cuts it (minor dims of 3/64 force padded layouts, as in the
+        #    tree-PC block algebra, fea/tree_jax.py).
         # 4. Trip counts of the chunk loops are bounded by the MEASURED
         #    max occupancy (lax.while_loop with a dynamic bound), so the
-        #    static caps C/Ct only size memory: the xlarge state runs
-        #    ~40 of 64 segment slots and ~10 of 16 tip slots.
+        #    static caps C/Ct only size memory.
         # The scan carries (distance, segment parameter tt, winner slot)
         # and the winning projection is recomputed once per hypha after
         # the scan — one H-row gather instead of three carried planes.
@@ -374,9 +361,7 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
 
         def chunk_of(cap, want=16):
             # finer chunks track the measured occupancy tighter: the trip
-            # bound ceil(occ/K)*K overshoots occ by up to K-1 planes, and
-            # the xlarge overlay runs occ ~18 of cap 64 (K=16 scanned 32
-            # planes; K=4 scans 20)
+            # bound ceil(occ/K)*K overshoots occ by up to K-1 planes
             K = min(want, cap)
             while cap % K:
                 K -= 1
@@ -385,9 +370,8 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
         def gather_source(ids_grid, occ, cap, want=16):
             """Build one candidate source from a plane-layout id table:
             occupancy-bounded geometry pregather (only occupied chunks
-            are gathered — the full-table gather cost 37 ms/step at
-            xlarge; unvisited chunks stay zero, excluded by the ids>=N
-            mask in the scan) + offset-independent per-candidate
+            are gathered; unvisited chunks stay zero, excluded by the
+            ids>=N mask in the scan) + offset-independent per-candidate
             precompute (direction, inverse squared length — segment
             planes are never rolled)."""
             K = chunk_of(cap, want)
@@ -437,10 +421,9 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
                         grid_new.ids.reshape(GC, g, g), n_sc_p, Kp)]
             # overlay capacity = max_per_cell (not the tip-END cap): tip
             # SEGMENT midpoints cluster like segments, not like corner-
-            # bucketed tips — Ct=16 dropped candidates at the xlarge
-            # inoculum density that the old combined C=64 table held
-            # (surfaced as a spurious overflow flag). The scan is bounded
-            # by measured occupancy, so the wider table costs memory only.
+            # bucketed tips, and Ct=16 drops candidates at dense inoculum
+            # sites. The scan is bounded by measured occupancy, so the
+            # wider table costs memory only.
             GO = gz * C
             tip_seg_ok = (hyp_ids < st.n_hyp) & (st.tip >= 0)
             mid_t = (tge[:, 0:3] + tip_end) * 0.5
@@ -479,46 +462,23 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
         tslot = tip_tbl.reshape(g, g, gz, Ct) \
             .transpose(3, 2, 0, 1).reshape(GT, g, g)
         # tip geometry table by ONE H-row scatter through tip_pos instead
-        # of gathering end_pad at every table cell — the (GT·g·g)-row
-        # gather was ~2M rows for ~155k live tips at xlarge (~15-20 ms of
-        # the 65 ms anastomose step, round-5 piece profile). Empty table
-        # slots stay zero exactly like end_pad's sentinel row did.
+        # of a (GT·g·g)-row gather at every table cell. Empty table slots
+        # stay zero exactly like a gathered sentinel row would.
         tbl3 = jnp.zeros((m_cells * Ct + 1, 3), dtype) \
             .at[tip_pos].set(tip_end, mode="drop")
         tip_flat = tbl3[:m_cells * Ct].reshape(g, g, gz, Ct, 3) \
             .transpose(3, 2, 0, 1, 4).reshape(GT, g, g, 3)
         tpp = [tip_flat[..., k] for k in range(3)]            # (GT,g,g)
 
-        use_kernel = (use_inc and corner_window and gz == 1
-                      and dtype == jnp.float32 and cfg.anast_kernel
-                      and _anast_kernel_mode() != "off"
-                      and (_jax.default_backend() != "cpu"
-                           or _anast_kernel_mode() == "interpret"))
-        if use_kernel:
-            # banded Pallas scan: per-band occupancy bounds + one launch
-            # (growth/pallas_anast.py) — the XLA chunk loops below pay
-            # global-max trip counts and per-iteration dispatch
-            from .pallas_anast import anast_scan_kernel
-            tipcnt = jnp.sum(tslot < N, axis=0).astype(jnp.int32)
-            gcnt = grid_new.count.reshape(g, g)
-            ocnt = jnp.sum(ov_ids < N, axis=0).astype(jnp.int32)
-            ksrcs = [(s[0], s[1], s[2], s[3]) for s in sources]
-            best_d2, best_tt, best_id = anast_scan_kernel(
-                tpp, tslot, ksrcs, tipcnt, [gcnt, ocnt], N, g,
-                interpret=_jax.default_backend() == "cpu")
-            best_d2 = best_d2.astype(dtype)
-            best_tt = best_tt.astype(dtype)
-
         # ONE tip plane per chunk: corner-bucket occupancy is heterogeneous
-        # (xlarge: mean 1.9 tips/cell, max 9), so Kt=8 scanned 16 planes
-        # where 9 suffice — Kt=1 makes the trip bound exact in occ
+        # (a few tips per cell on average, several times that at the
+        # busiest), so Kt=1 makes the trip bound exact in occ
         Kt = 1
         n_tc = jnp.minimum(tip_occ * gz, GT).astype(jnp.int32)
 
-        if not use_kernel:
-            best_d2 = jnp.full((GT, g, g), big)
-            best_tt = jnp.zeros((GT, g, g), dtype)
-            best_id = jnp.full((GT, g, g), N, jnp.int32)
+        best_d2 = jnp.full((GT, g, g), big)
+        best_tt = jnp.zeros((GT, g, g), dtype)
+        best_id = jnp.full((GT, g, g), N, jnp.int32)
 
         def make_seg_scan(src):
             """Chunked distance scan over one candidate source (the
@@ -549,10 +509,10 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
                 # first-match one-hot select of the projection — no
                 # gather, and no cumsum: a cumsum along the candidate
                 # axis is a serial scan XLA cannot fuse into this body,
-                # so every (Kt,K,g,g) intermediate (64 MB at xlarge) hit
-                # HBM — measured ~89 of the 110 ms xlarge anastomose.
-                # Two fusable reductions pick the same winner (smallest
-                # candidate index among the distance ties).
+                # so every (Kt,K,g,g) intermediate would go through
+                # device memory. Two fusable reductions pick the same
+                # winner (smallest candidate index among the distance
+                # ties).
                 hit = d2 <= dmin[:, None]
                 kk = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 1)
                 kmin = jnp.min(jnp.where(hit, kk, d2.shape[1]), axis=1)
@@ -582,7 +542,7 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
             return run
 
         seg_scans = [make_seg_scan(src) for src in sources]
-        for dx, dy in ([] if use_kernel else grid_offs):
+        for dx, dy in grid_offs:
             # roll tips by +(dx,dy): at grid index m the pair is
             # (tip bucket m-(dx,dy)) vs (segment cell m)
             rtp = [jnp.roll(p, (dx, dy), axis=(1, 2)) for p in tpp]
@@ -620,9 +580,8 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
             best_id = jnp.where(better, oid, best_id)
 
         # ---- pull per-HYPHA results out of the table space: the results
-        # live in (GT,g,g) planes, but scattering snaps through that 2M-
-        # entry space cost 107 ms/step at xlarge (a f32[...,3] scatter is
-        # ~46 ns/row); four H-row gathers + H-row scatters cost ~25 ms.
+        # live in (GT,g,g) planes; four H-row gathers + H-row scatters
+        # replace a scatter of snaps through the whole table space.
         # Flat plane index of hypha h's tip: tip_pos = cell*Ct + rank with
         # cell = (cx*g + cy)*gz + cz  ->  ((rank*gz + cz)*g + cx)*g + cy.
         cell_h = tip_pos // Ct
@@ -648,7 +607,7 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
         snap = (flat_slot < N) & (flat_d <= cfg.anastomosis_tol)
         n_dropped = seg_dropped + tip_dropped
     else:
-        # per-tip windows gathered from the dense table (CPU-friendly)
+        # per-tip windows gathered from the dense table
         grid_new = st.grid
         tbl_cols = seg_tbl.reshape(g * g, gz * C)
         cx, cy, _ = cell_coords(tip_end, cfg)
@@ -668,7 +627,7 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
         n_dropped = seg_dropped
 
     # ---- scatter snaps back to tip segment slots (per coordinate plane:
-    # a width-3 f32 row scatter costs ~3x the three scalar ones)
+    # three scalar scatters instead of one width-3 row scatter)
     idx = jnp.where(snap, flat_slot, N)
     end = jnp.stack(
         [st.end[:, k].at[idx].set(flat_proj[:, k], mode="drop")

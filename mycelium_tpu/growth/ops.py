@@ -61,9 +61,8 @@ def translocate(st: GrowthState, cfg: GrowthConfig) -> GrowthState:
     OCCUPANCY-BOUNDED: slots are allocated densely in [0, n_seg), so
     the per-row work (the packed (rows, 2) gather, the elif algebra and
     the pred scatter) runs in 2^16-row chunks inside a while_loop with
-    a trip count from n_seg — the full-capacity form cost ~31 ms/step
-    of the ~150 ms xlarge step regardless of how few slots were live
-    (round-5 profile; capacity 2^21, occupancy 10-50%). Bit-identical:
+    a trip count from n_seg, so the cost follows the live slots, not
+    the capacity (occupancy runs 10-50% at large presets). Bit-identical:
     every read uses the ORIGINAL sub, each slot receives at most one
     +delta (itself) and one -delta (its unique extension child), and
     the clamp applies once at the end, exactly as before."""
@@ -138,9 +137,8 @@ def grow(st: GrowthState, cfg: GrowthConfig, key) -> GrowthState:
     hyp_valid = (hyp_ids < st.n_hyp) & (tip_slot >= 0)
     t = jnp.maximum(tip_slot, 0)
 
-    # ONE packed f32 gather for all per-tip fields (row gathers cost
-    # ~4-25 ns/row regardless of width; six separate gathers at 2^19
-    # hyphae cost ~80 ms/step) + a 1-byte state gather
+    # ONE packed f32 gather for all per-tip fields instead of six
+    # separate row gathers, + a 1-byte state gather
     packed = jnp.concatenate(
         [st.start, st.end, st.theta[:, None], st.phi[:, None],
          st.sub[:, None]], axis=1)[t]                  # (H, 9)
@@ -192,9 +190,9 @@ def grow(st: GrowthState, cfg: GrowthConfig, key) -> GrowthState:
 
     # New-segment writes: ext slots are the CONTIGUOUS range
     # [n_seg, n_seg + n_ext) and child slots the one after it, so instead
-    # of ~14 H-row scatters into the (N,) state arrays (~180 ms/step at
-    # the xlarge preset) we COMPACT each batch's values by rank with two
-    # scatters into small (H, k) staging buffers and commit them with
+    # of ~14 H-row scatters into the (N,) state arrays we COMPACT each
+    # batch's values by rank with two scatters into small (H, k) staging
+    # buffers and commit them with
     # contiguous dynamic_update_slice windows. Arrays are padded by H
     # rows so a window starting at n_seg <= N never clamps; rows past
     # each batch's count carry the init fill values (state EMPTY,
@@ -203,9 +201,8 @@ def grow(st: GrowthState, cfg: GrowthConfig, key) -> GrowthState:
     fdt = st.sub.dtype
 
     def compact(ok, rank, cols_f, cols_i):
-        # one scalar scatter per column: a (H,9) f32 row scatter costs
-        # 22.4 ms at 2^19 rows vs 3.7 ms per (H,) plane (measured) — the
-        # row form relayouts through the minor-dim tile padding
+        # one scalar scatter per column instead of one (H,9) row scatter
+        # whose minor dim of 9 pads in device layouts
         cidx = jnp.where(ok, rank.astype(jnp.int32), H)
         cf = jnp.stack(
             [jnp.zeros((H,), fdt).at[cidx].set(c, mode="drop")
@@ -215,8 +212,8 @@ def grow(st: GrowthState, cfg: GrowthConfig, key) -> GrowthState:
              for c in cols_i], axis=1)
         return cf, ci
 
-    # int staging stays as narrow as possible — scatter cost grows ~3x
-    # per extra s32 column at 2^19 rows: the hypha-id column doubles as
+    # int staging stays as narrow as possible — scatter cost grows with
+    # each extra s32 column: the hypha-id column doubles as
     # the "was written" indicator (fill -1 -> EMPTY), and the children's
     # prev column is the constant -1 (no staging needed)
     ext_f, ext_i = compact(
@@ -466,11 +463,12 @@ def enforce_walls(st: GrowthState, env: EnvArrays, cfg: GrowthConfig,
                                       end) for w in range(W)], axis=1)
         pen = jnp.any(inside, axis=1) & hyp_valid
         w_first = jnp.argmax(inside, axis=1)          # first penetrated wall
-        # one-hot contractions over the tiny wall table instead of H-row
-        # gathers (3 gathers x 3 sweeps cost ~80 ms/step at 2^19 hyphae)
-        ohw = jax.nn.one_hot(w_first, W, dtype=dtype)           # (H, W)
-        c = ohw @ env.wall_center
-        half = (ohw @ env.wall_size) / 2.0
+        # one-hot selection over the tiny wall table instead of H-row
+        # gathers. It is a masked sum, not a matmul: wall geometry must
+        # come out exact, and a GPU runs f32 matmuls as TF32 by default
+        ohw = jax.nn.one_hot(w_first, W, dtype=dtype)[:, :, None]  # (H,W,1)
+        c = jnp.sum(ohw * env.wall_center[None], axis=1)
+        half = jnp.sum(ohw * env.wall_size[None], axis=1) / 2.0
         delta = end - c
         overlap = jnp.abs(delta) - half
         face = jnp.argmax(overlap, axis=1)
@@ -499,8 +497,8 @@ def enforce_walls(st: GrowthState, env: EnvArrays, cfg: GrowthConfig,
     new_phi = jnp.arctan2(dirv[:, 1], dirv[:, 0])
 
     idx = jnp.where(touched, t, N)
-    # per coordinate plane: a width-3 f32 row scatter costs ~3.4x the
-    # three scalar ones at 2^19 hyphae (measured 37.7 vs 11.2 ms/step)
+    # per coordinate plane: three scalar scatters instead of one width-3
+    # row scatter
     end_out = jnp.stack(
         [st.end[:, k].at[idx].set(end[:, k], mode="drop")
          for k in range(3)], axis=1)

@@ -1,4 +1,4 @@
-"""Fixed-capacity SoA growth state (the TPU-native replacement for the
+"""Fixed-capacity SoA growth state (the jit-friendly replacement for the
 reference's object graph of Hypha/Segment lists — src/mycelium_sim_2D.py:
 133-199 — and the C++ AoS structs, src/mycelium_sim_2D.cpp:86-139).
 

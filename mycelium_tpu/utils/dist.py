@@ -1,12 +1,14 @@
 """Multi-process (multi-host) initialization and coordinator-only IO.
 
-TPU-native counterpart of the reference's MPI process model
+JAX counterpart of the reference's MPI process model
 (src/fea_petsc_parallel.cpp:156-171: MPI_Init via PetscInitialize,
-MPI_Comm_rank/size, mpirun -np N): one JAX process per host, connected by
+MPI_Comm_rank/size, mpirun -np N): JAX processes connected by
 ``jax.distributed.initialize`` (SURVEY.md §5.8's PetscInitialize mapping).
 Inside a process nothing changes — jit/shard_map programs simply see the
-global device set, and the sharded solver's psum/psum_scatter collectives
-ride ICI within a slice and DCN across slices.
+global device set. One process drives one card: a JAX process reserves
+most of every card it can see, so each process is restricted to its own
+(``JAX_LOCAL_DEVICE_IDS``, by default the card numbered like the
+process).
 
 IO discipline: exactly ONE process writes result files. The reference's
 parallel binary gets this wrong — every rank opens the same CSVs
@@ -27,14 +29,17 @@ _initialized = False
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
-                           process_id: Optional[int] = None) -> None:
+                           process_id: Optional[int] = None,
+                           local_device_ids: Optional[list] = None) -> None:
     """Connect this process to a multi-process JAX cluster.
 
     Must run before the first JAX computation (same constraint as
-    PetscInitialize). Arguments default to the standard environment
-    variables (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID); on managed TPU pods ``jax.distributed.initialize()``
-    auto-discovers everything and all three may stay None.
+    PetscInitialize). Arguments default to the environment variables
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID /
+    JAX_LOCAL_DEVICE_IDS (comma-separated). The first three are required:
+    nothing here auto-detects a cluster. Without local device ids the
+    process takes the single card ``[process_id]`` — the layout of N
+    processes on one N-card host.
     """
     global _initialized
     import jax
@@ -44,9 +49,18 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         num_processes = int(os.environ["JAX_NUM_PROCESSES"])
     if process_id is None and "JAX_PROCESS_ID" in os.environ:
         process_id = int(os.environ["JAX_PROCESS_ID"])
+    if None in (coordinator_address, num_processes, process_id):
+        raise ValueError(
+            "distributed run needs JAX_COORDINATOR_ADDRESS (host:port), "
+            "JAX_NUM_PROCESSES and JAX_PROCESS_ID")
+    if local_device_ids is None:
+        env_ids = os.environ.get("JAX_LOCAL_DEVICE_IDS")
+        local_device_ids = ([int(i) for i in env_ids.split(",")]
+                            if env_ids else [process_id])
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
     _initialized = True
 
 

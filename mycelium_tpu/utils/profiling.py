@@ -2,8 +2,8 @@
 
 The reference ships cProfile dumps (profile_output*.prof) and hand-rolled
 wall timers writing runtime.txt / solve_runtime.txt / runtime_results.csv.
-The rebuild keeps those file contracts (io.writers) and adds the TPU-native
-instrument: jax.profiler device traces viewable in TensorBoard/Perfetto.
+The rebuild keeps those file contracts (io.writers) and adds the device
+instrument: jax.profiler traces viewable in TensorBoard/Perfetto.
 
     with trace("/tmp/trace"):
         run_ramp(...)

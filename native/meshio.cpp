@@ -1,4 +1,4 @@
-// Native mesh-IO runtime for the TPU rebuild.
+// Native mesh-IO runtime for the JAX rebuild.
 //
 // The reference implements its data path natively in C++: CSV mesh readers
 // (reference: src/fea_petsc.cpp:42-82), per-step snapshot writers
@@ -148,7 +148,7 @@ int64_t meshio_dedup_nodes(const double* pts, int64_t n, int decimals,
 
 // ---------------------------------------------------------------------------
 // Greedy path cover over the element graph — the host-side ordering pass
-// behind the chain-ordered TPU operator (mycelium_tpu/fea/chain.py).
+// behind the chain-ordered operator (mycelium_tpu/fea/chain.py).
 // Semantics match chain.greedy_path_cover exactly: adjacency lists hold,
 // for node v, first the opposite endpoints of elements where v is endpoint
 // 0 (in element order), then those where v is endpoint 1; walk starts are

@@ -3,7 +3,7 @@
 # stage 1 growth -> newest results/sim_<ts> -> stage 2 FEA pull test.
 #
 # The reference submits this through SLURM on a CPU cluster; here the same
-# flow is one host process driving the attached TPU. Usage:
+# flow is one host process driving the attached GPU. Usage:
 #   scripts/run_all.sh [--three-d] [extra `grow` flags...]
 set -euo pipefail
 cd "$(dirname "$0")/.."

@@ -355,8 +355,8 @@ def test_walls_leave_interior_tips_alone():
 
 
 def test_anastomosis_strategies_agree():
-    """'grid' (TPU rolls) and 'window' (CPU gathers) must produce the same
-    snaps on the same state."""
+    """'grid' (table rolls) and 'window' (per-tip gathers) must produce
+    the same snaps on the same state."""
     from mycelium_tpu.growth.step import growth_step
     cfg = GrowthConfig(t_steps=6, max_segments=4096, max_hyphae=2048,
                        dtype="float32")
@@ -447,24 +447,11 @@ def test_uptake_saturated_interleave():
                                rtol=1e-9, atol=2e-18)
 
 
-from functools import partial
-
-
-@partial(jax.jit, static_argnums=(2,))
 def _step_with_grid(st, ea, cfg):
-    """growth_step's exact op order with the query strategy pinned to
-    'grid' (the step default would pick 'window' on CPU). Jitted like
-    the production step: the eager per-primitive path additionally
-    tickles a persistent-compilation-cache deserialization segfault on
-    re-read of eager while_loop executables (jax 0.8 CPU)."""
-    key, k_grow = jax.random.split(st.key)
-    st = st._replace(key=key)
-    st = translocate(st, cfg)
-    st = grow(st, cfg, k_grow)
-    st = detect_anastomosis(st, cfg, strategy="grid")
-    st = uptake(st, ea, cfg)
-    st = enforce_walls(st, ea, cfg, st.key)
-    return st._replace(step=st.step + 1)
+    """growth_step with the query strategy pinned to 'grid' (the step
+    default picks 'window')."""
+    from mycelium_tpu.growth.step import growth_step
+    return growth_step(st, ea, cfg, "grid")
 
 
 def _assert_states_equal(a, b, context=""):
@@ -534,90 +521,3 @@ def test_incremental_grid_cell_overflow_sets_flag():
     for _ in range(cfg.t_steps):
         st = _step_with_grid(st, ea, cfg)
     assert bool(np.asarray(st.overflow))
-
-
-def test_anast_kernel_matches_xla_scan(monkeypatch):
-    """The banded Pallas scan kernel (growth/pallas_anast.py, interpret
-    mode on CPU) must reproduce the XLA chunk-loop scan exactly — same
-    snapped endpoints and states over a real grown f32 state with a
-    multi-band face, occupied and empty bands, and both candidate
-    sources populated."""
-    import dataclasses
-    from mycelium_tpu.growth.step import run_growth
-
-    cfg = GrowthConfig(t_steps=25, grid_incremental=True)
-    st, _, hist = run_growth(cfg, petri_dish(cfg))
-    assert np.asarray(st.start).dtype == np.float32
-    assert hist[-1]["segments"] > 1000
-
-    monkeypatch.setenv("MYC_ANAST_KERNEL", "off")
-    out_x = detect_anastomosis(st, cfg)
-    monkeypatch.setenv("MYC_ANAST_KERNEL", "interpret")
-    out_k = detect_anastomosis(st, cfg)
-
-    assert np.array_equal(np.asarray(out_x.end), np.asarray(out_k.end))
-    assert np.array_equal(np.asarray(out_x.state), np.asarray(out_k.state))
-    assert np.sum(np.asarray(out_k.state) == ANASTOMOSED) \
-        >= np.sum(np.asarray(st.state) == ANASTOMOSED)
-
-
-def test_anast_kernel_band_boundary_halo(monkeypatch):
-    """A tip whose corner cell is the FIRST row of band 2 (row 48 of the
-    54-row face; TB = 48) with its only in-tolerance candidate in row 47
-    — the candidate is visible to the kernel ONLY through the DMA
-    window's top halo rows (VERDICT r4 #6b: the halo/roll edge is the
-    riskiest part of the banded layout and organic-growth fixtures don't
-    pin a pair straddling the band boundary)."""
-    import dataclasses
-    from mycelium_tpu.growth.neighbors import grid_dims
-    from mycelium_tpu.growth.pallas_anast import TB
-    from mycelium_tpu.growth.state import ensure_grid
-
-    cfg = GrowthConfig(max_segments=64, max_hyphae=8, h0_per_point=2,
-                       inoculum_nx=2, inoculum_ny=2,
-                       grid_incremental=True)
-    g, gz = grid_dims(cfg)
-    assert g > TB and gz == 1          # multi-band face (54 rows, 2 bands)
-
-    st, _ = init_state(cfg)
-    N, H = cfg.max_segments, cfg.max_hyphae
-    start = np.zeros((N, 3)); end = np.zeros((N, 3))
-    state = np.zeros(N, np.int8)
-    prev = np.full(N, -1, np.int32)
-    hypha = np.full(N, -1, np.int32)
-    tip = np.full(H, -1, np.int32)
-    # hypha 0: ACTIVE tip segment ending at x=2.0990 -> corner row
-    # floor(20.990 + 0.5) + 27 = 48 (first row of band 2)
-    start[0] = [2.049, 0.0, 0.0]; end[0] = [2.0990, 0.0, 0.0]
-    state[0] = ACTIVE; hypha[0] = 0; tip[0] = 0
-    # hypha 1: finalized vertical segment A at x=2.0995 (midpoint row
-    # floor(20.995) + 27 = 47 -> last row of band 1) 5e-4 from the tip,
-    # plus its extension child B (so A appears as a parent in prev[] and
-    # the backlog insert puts it in the persistent grid); B's endpoints
-    # are >= 0.025 away, so the winner MUST come through the halo read
-    start[1] = [2.0995, -0.025, 0.0]; end[1] = [2.0995, 0.025, 0.0]
-    state[1] = PASSIVE; hypha[1] = 1
-    start[2] = [2.0995, 0.025, 0.0]; end[2] = [2.0995, 0.075, 0.0]
-    state[2] = PASSIVE; hypha[2] = 1; prev[2] = 1; tip[1] = 2
-    st = st._replace(
-        start=jnp.asarray(start, st.start.dtype),
-        end=jnp.asarray(end, st.end.dtype),
-        state=jnp.asarray(state), prev=jnp.asarray(prev),
-        hypha=jnp.asarray(hypha), tip=jnp.asarray(tip),
-        n_seg=jnp.asarray(3, jnp.int32), n_hyp=jnp.asarray(2, jnp.int32))
-    st = ensure_grid(st._replace(grid=None), cfg)
-
-    monkeypatch.setenv("MYC_ANAST_KERNEL", "off")
-    out_x = detect_anastomosis(st, cfg)
-    monkeypatch.setenv("MYC_ANAST_KERNEL", "interpret")
-    out_k = detect_anastomosis(st, cfg)
-
-    # the kernel found the cross-band pair and snapped exactly like XLA
-    assert int(np.asarray(out_k.state)[0]) == ANASTOMOSED
-    np.testing.assert_array_equal(np.asarray(out_x.state),
-                                  np.asarray(out_k.state))
-    np.testing.assert_array_equal(np.asarray(out_x.end),
-                                  np.asarray(out_k.end))
-    # snap target: the projection onto segment A, x = 2.0995, y = 0
-    assert abs(float(np.asarray(out_k.end)[0, 0]) - 2.0995) < 1e-6
-    assert abs(float(np.asarray(out_k.end)[0, 1])) < 1e-6

@@ -171,17 +171,26 @@ def test_native_spanning_forest_matches_python_oracle():
     assert f_native.sum() <= nn - 1
 
 
+# Header lines of the reference C++ binaries' CSVs (SURVEY.md §2.3,
+# lines 129 and 137): the growth sim writes step FIRST
+# (mycelium_sim_2D.cpp:559,571); the FEA writer groups displacement
+# headers by component, node_i_x.. then _y.. then _z.. over DOF-ordered
+# data (fea_petsc.cpp:477-505). test_I has 4 nodes.
+CPP_GROWTH_STATS_HEADER = ("step,hyphae,segments,active_tips,passive_tips,"
+                           "anastomosed,branches,total_length_mm")
+CPP_TEST_I_DISP_HEADER = ",".join(
+    [f"node_{i}_{ax}" for ax in "xyz" for i in range(4)] + ["step"])
+
+
 def test_growth_stats_cpp_variant(tmp_path):
     """C++ growth sim puts step FIRST (mycelium_sim_2D.cpp:559,571) —
-    header must byte-match the archived C++ run."""
+    header must byte-match the C++ binary's contract."""
     hist = [dict(hyphae=373, segments=623, active_tips=343,
                  passive_tips=250, anastomosed=30, branches=348,
                  total_length_mm=31.148600123, step=0)]
     path = write_growth_stats(str(tmp_path), hist, variant="cpp")
     lines = open(path).read().splitlines()
-    ref_header = open("/root/reference/results/sim_20251122_155110/"
-                      "mycelium_growth_stats.csv").readline().strip()
-    assert lines[0] == ref_header
+    assert lines[0] == CPP_GROWTH_STATS_HEADER
     assert lines[1] == "0,373,623,343,250,30,348,31.1486"
 
 
@@ -190,7 +199,7 @@ def test_fea_records_cpp_variant(tmp_path):
     component-grouped node_i_x.. displacement header over DOF-ordered data
     (fea_petsc.cpp:477-505 — mislabeled in the reference, reproduced
     faithfully)."""
-    n_rec, n_elems, n_nodes = 2, 3, 4
+    n_rec, n_elems, n_nodes = 2, 3, 4       # test_I's shape
     rng = np.random.default_rng(1)
     write_fea_records(str(tmp_path),
                       rng.normal(size=(n_rec, n_elems)),
@@ -202,6 +211,4 @@ def test_fea_records_cpp_variant(tmp_path):
     assert set(active[1].split(",")[:-1]) <= {"0", "1"}
     disp_header = open(tmp_path / "node_displacements.csv"
                        ).readline().strip()
-    ref_header = open("/root/reference/results/test_I_cpp/fea_results/"
-                      "node_displacements.csv").readline().strip()
-    assert disp_header == ref_header
+    assert disp_header == CPP_TEST_I_DISP_HEADER

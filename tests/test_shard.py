@@ -113,8 +113,7 @@ def test_sharded_coarse_preconditioner(growth_mesh, basis, cap):
     cfg = dataclasses.replace(base, precond="coarse", coarse_basis=basis,
                               **({"coarse_max_dim": cap} if cap else {}))
     if cap is not None:
-        from mycelium_tpu.fea.pallas_cg import (coarse_cluster_blocks,
-                                                plan_nb)
+        from mycelium_tpu.fea.coarse import coarse_cluster_blocks, plan_nb
         assert coarse_cluster_blocks(plan_nb(coords.shape[0]), cfg) > 1
     model = build_model(coords, conn, base)
     active = jnp.ones((model.n_elems,), bool)

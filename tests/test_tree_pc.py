@@ -61,8 +61,7 @@ def bc_tree_matrix(model, sch, active, free, reg):
 @pytest.mark.parametrize("seed,frac", [(0, None), (1, 0.06), (2, 0.2)])
 def test_numpy_factor_apply_matches_splu(seed, frac):
     coords, conn = random_forest_mesh(seed=seed)
-    cfg = FeaConfig(dtype="float64", operator="ell", use_pallas=False,
-                    grip_length=0.08)
+    cfg = FeaConfig(dtype="float64", operator="ell", grip_length=0.08)
     model = build_model(coords, conn, cfg)
     N = model.n_nodes
     conn_np = np.asarray(model.conn)
@@ -96,8 +95,7 @@ def test_numpy_factor_apply_matches_splu(seed, frac):
                          [(0, None, 0.0), (1, 0.08, 0.0), (3, 0.1, 0.05)])
 def test_jax_matches_numpy_oracle(seed, frac, anchor_frac):
     coords, conn = random_forest_mesh(seed=seed)
-    cfg = FeaConfig(dtype="float64", operator="ell", use_pallas=False,
-                    grip_length=0.08, precond="tree")
+    cfg = FeaConfig(dtype="float64", operator="ell", grip_length=0.08, precond="tree")
     model = build_model(coords, conn, cfg)
     N = model.n_nodes
     conn_np = np.asarray(model.conn)
@@ -137,7 +135,7 @@ def test_jax_matches_numpy_oracle(seed, frac, anchor_frac):
 
 def test_tree_pc_cuts_iterations_and_matches_solution():
     coords, conn = random_forest_mesh(n_nodes=900, n_extra=18, seed=4)
-    base = dict(dtype="float64", operator="chain", use_pallas=False,
+    base = dict(dtype="float64", operator="chain",
                 grip_length=0.1, rtol=1e-8)
     cfg_bj = FeaConfig(precond="block_jacobi", **base)
     cfg_tr = FeaConfig(precond="tree", **base)
@@ -158,8 +156,7 @@ def test_tree_pc_on_fully_gripped_scenes(scene_name):
     """The archived test scenes are fully gripped (no free nodes) — the
     tree PC must degenerate gracefully to the identity."""
     sc = scenes.SCENES[scene_name]()
-    cfg = FeaConfig(dtype="float64", operator="chain", use_pallas=False,
-                    precond="tree")
+    cfg = FeaConfig(dtype="float64", operator="chain", precond="tree")
     model = build_model(sc.coords, sc.conn, cfg)
     active = jnp.ones((model.n_elems,), bool)
     x0 = jnp.zeros((model.n_nodes, 3), jnp.float64)
@@ -195,14 +192,14 @@ def test_tree_plus_coarse_weight_matches_tree_solution():
 def test_coarse_wide_clusters_same_solution(cap):
     """coarse_max_dim widens clusters to kblk consecutive 128-blocks so
     the dense coarse operator stays bounded at large n (the uncapped
-    on-device inverse grows as 3n/128 and crashes the TPU worker past
-    ~4.7k dim — 330k-node meshes need kblk>1). The correction is a pure
+    inverse grows as 3n/128 — 330k-node meshes need kblk>1). The
+    correction is a pure
     preconditioner: wide-cluster solves must reproduce the tree-only
     solution, for both the additive tree+coarse PC and the standalone
     'coarse' PC."""
     import dataclasses
     import jax.numpy as jnp
-    from mycelium_tpu.fea.pallas_cg import coarse_cluster_blocks, plan_nb
+    from mycelium_tpu.fea.coarse import coarse_cluster_blocks, plan_nb
     from mycelium_tpu.fea.ramp import anchored_mask_host
     from mycelium_tpu.fea.solve import solve_displacement
 
@@ -242,8 +239,7 @@ def test_split_schedule_matches_unbounded(max_len):
     level (two-level cyclic reduction); the factorization stays EXACT —
     apply through the split schedule must solve the same tree system."""
     coords, conn = random_forest_mesh(seed=7)
-    cfg = FeaConfig(dtype="float64", operator="ell", use_pallas=False,
-                    grip_length=0.08, precond="tree")
+    cfg = FeaConfig(dtype="float64", operator="ell", grip_length=0.08, precond="tree")
     model = build_model(coords, conn, cfg)
     N = model.n_nodes
     conn_np = np.asarray(model.conn)
@@ -278,8 +274,7 @@ def test_dense_tail_apply_matches_pure_pcr(cap):
     same tree system to roundoff."""
     import dataclasses
     coords, conn = random_forest_mesh(n_nodes=500, n_extra=10, seed=9)
-    base = FeaConfig(dtype="float64", operator="chain", use_pallas=False,
-                     grip_length=0.08, precond="tree", tree_dense_tail=0)
+    base = FeaConfig(dtype="float64", operator="chain",  grip_length=0.08, precond="tree", tree_dense_tail=0)
     m0 = build_model(coords, conn, base)
     mc = build_model(coords, conn,
                      dataclasses.replace(base, tree_dense_tail=cap))
@@ -320,8 +315,7 @@ def test_fast_factor_matches_generic():
     chain permutation."""
     import mycelium_tpu.fea.tree_jax as trj2
     coords, conn = random_forest_mesh(seed=5)
-    cfg = FeaConfig(dtype="float64", operator="chain", use_pallas=False,
-                    grip_length=0.08, precond="tree")
+    cfg = FeaConfig(dtype="float64", operator="chain", grip_length=0.08, precond="tree")
     model = build_model(coords, conn, cfg)
     assert model.tree_fast is not None
     N = model.n_nodes
@@ -404,150 +398,3 @@ def test_native_peel_matches_python_grip_bands():
         for f in la._fields:
             assert np.array_equal(np.asarray(getattr(la, f)),
                                   np.asarray(getattr(lb, f))), f
-
-
-@pytest.mark.parametrize("seed,frac,chunk_rows",
-                         [(11, 0.0, None), (12, 0.08, None),
-                          (11, 0.0, 4), (12, 0.08, 4)])
-def test_factor_kernel_matches_xla(seed, frac, chunk_rows, monkeypatch):
-    """The fused Pallas factorization kernel (pallas_factor.py) must
-    reproduce tree_factor_fast's XLA plane algebra exactly: same PCR
-    coefficients, block inverses, corner-solve Schur flow, and dense
-    tail. kernel_min_slots=1 forces EVERY level through the kernel.
-
-    ``chunk_rows=4`` shrinks the per-program window so the 900-node
-    mesh's whale level splits into MULTIPLE chunks (the default
-    CHUNK_ROWS=128 packs 16,384 positions per chunk — every level fits
-    one chunk and the chunked-window DMA slicing, halo sizing, and
-    in-window roll-wraparound annihilation never execute; they DO run
-    at 309k DOF on hardware, so CI must cover them)."""
-    import jax as _jax
-
-    import mycelium_tpu.fea.pallas_factor as pf
-
-    def _leaves(x):
-        return _jax.tree_util.tree_leaves(x)
-
-    if chunk_rows is not None:
-        monkeypatch.setattr(pf, "CHUNK_ROWS", chunk_rows)
-    coords, conn = random_forest_mesh(n_nodes=900, n_extra=18, seed=seed)
-    cfg = FeaConfig(dtype="float64", operator="chain", use_pallas=False,
-                    grip_length=0.08, precond="tree")
-    model = build_model(coords, conn, cfg)
-    N = model.n_nodes
-    rng = np.random.default_rng(seed)
-    free0 = ~(np.asarray(model.top_nodes) | np.asarray(model.bot_nodes))
-    active = jnp.asarray(rng.random(model.n_elems) > frac)
-    free_j = jnp.asarray(free0)
-    free_chain = free_j[model.chain.perm]
-    reg = jnp.asarray(1e-9)
-    f_xla = trj.tree_factor_fast(model.tree, model.tree_fast, model.chain,
-                                 active, free_j, free_chain, reg,
-                                 model.conn)
-    f_ker = trj.tree_factor_fast(model.tree, model.tree_fast, model.chain,
-                                 active, free_j, free_chain, reg,
-                                 model.conn, use_kernel=True,
-                                 kernel_min_slots=1, interpret=True)
-    # every level with steps > 0 must have gone through the kernel, and
-    # with chunk_rows=4 the whale level must have split into >= 2 chunks
-    meta = model.tree.meta
-    assert any(p is not None for p in f_ker.packed)
-    if chunk_rows is not None:
-        nb0 = -(-(meta.level_offsets[1] - meta.level_offsets[0]) // 128)
-        assert -(-nb0 // chunk_rows) >= 2, "whale level fits one chunk"
-    # kernel-factored levels carry only the packed coefficient layout
-    # (unpacked views are derived, not stored — ADVICE r3); reconstruct
-    # them for the element-wise comparison
-    ker_al, ker_be = [], []
-    for li, pk in enumerate(f_ker.packed):
-        s0, s1 = meta.level_offsets[li], meta.level_offsets[li + 1]
-        if pk is None:
-            ker_al.append(f_ker.alphas[li])
-            ker_be.append(f_ker.betas[li])
-        else:
-            assert f_ker.alphas[li] is None and f_ker.betas[li] is None
-            al, be = pf.unpack_coeffs(pk, meta.level_steps[li], s1 - s0)
-            ker_al.append(al)
-            ker_be.append(be)
-    # the two programs fuse/FMA-contract differently; ulp noise amplifies
-    # through the 8-round recurrence (measured max rel 2.4e-9 in f64) and
-    # the dense-tail jnp.linalg.inv amplifies it further under fracture
-    # (measured 7e-5) — so sinv gets a looser, still bug-catching bar
-    for name, kv in (("alphas", ker_al), ("betas", ker_be),
-                     ("att_b", getattr(f_ker, "att_b"))):
-        for a, b in zip(_leaves(getattr(f_xla, name)), _leaves(kv)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-7, atol=1e-13,
-                                       err_msg=name)
-    # dinv rows of fracture-isolated (reg-only) blocks and the dense
-    # tail inverse are the noise amplifiers (measured rel ~7e-5)
-    for name in ("dinv", "sinv"):
-        np.testing.assert_allclose(np.asarray(getattr(f_xla, name)),
-                                   np.asarray(getattr(f_ker, name)),
-                                   rtol=1e-3, atol=1e-9, err_msg=name)
-    # and the apply built on the kernel factor matches
-    r = rng.standard_normal((N, 3))
-    perm = np.asarray(model.chain.perm)
-    za = np.asarray(trj.tree_apply_chain(model.tree, f_xla,
-                                         jnp.asarray(r[perm])))
-    zb = np.asarray(trj.tree_apply_chain(model.tree, f_ker,
-                                         jnp.asarray(r[perm])))
-    np.testing.assert_allclose(zb, za, rtol=1e-3, atol=1e-9)
-
-
-def test_chunked_apply_matches_whole_level(monkeypatch):
-    """The chunked-window PCR apply (pallas_factor._apply_kernel_chunked,
-    the path 860k-slot levels take on hardware where the whole-level
-    coefficient slabs bust VMEM) must match the whole-level kernel and
-    the XLA apply exactly. Forced here by shrinking APPLY_WHOLE_LIMIT to
-    1 byte and CHUNK_ROWS to 4 so a 4k-node mesh splits into multiple
-    halo-padded windows (first / interior / last chunks all run; window
-    starts are static — the factor stores the slabs halo-padded because
-    Mosaic cannot lower a dynamic_slice of a value)."""
-    import jax as _jax
-
-    import mycelium_tpu.fea.pallas_factor as pf
-
-    coords, conn = random_forest_mesh(n_nodes=4000, n_extra=60, seed=3)
-    cfg = FeaConfig(dtype="float64", operator="chain", use_pallas=False,
-                    grip_length=0.08, precond="tree")
-    model = build_model(coords, conn, cfg)
-    N = model.n_nodes
-    rng = np.random.default_rng(3)
-    free0 = ~(np.asarray(model.top_nodes) | np.asarray(model.bot_nodes))
-    active = jnp.asarray(rng.random(model.n_elems) > 0.05)
-    free_j = jnp.asarray(free0)
-    free_chain = free_j[model.chain.perm]
-    reg = jnp.asarray(1e-9)
-
-    monkeypatch.setattr(pf, "CHUNK_ROWS", 4)
-    f_ref = trj.tree_factor_fast(model.tree, model.tree_fast, model.chain,
-                                 active, free_j, free_chain, reg,
-                                 model.conn)
-    f_ker = trj.tree_factor_fast(model.tree, model.tree_fast, model.chain,
-                                 active, free_j, free_chain, reg,
-                                 model.conn, use_kernel=True,
-                                 kernel_min_slots=1, interpret=True)
-    # the whale level must be big enough for >= 2 clamped windows
-    meta = model.tree.meta
-    S0 = meta.level_offsets[1] - meta.level_offsets[0]
-    halo = pf.halo_rows(meta.level_steps[0])
-    nb_pad = -(-(-(-S0 // 128)) // 4) * 4
-    assert nb_pad >= 4 + 2 * halo, "mesh too small for the chunked window"
-    assert nb_pad // 4 >= 2
-
-    r = rng.standard_normal((N, 3))
-    perm = np.asarray(model.chain.perm)
-    za = np.asarray(trj.tree_apply_chain(model.tree, f_ref,
-                                         jnp.asarray(r[perm])))
-    zb = np.asarray(trj.tree_apply_chain(model.tree, f_ker,
-                                         jnp.asarray(r[perm])))
-
-    monkeypatch.setattr(pf, "APPLY_WHOLE_LIMIT", 1)   # force chunked
-    zc = np.asarray(trj.tree_apply_chain(model.tree, f_ker,
-                                         jnp.asarray(r[perm])))
-    scale = np.abs(za).max()
-    np.testing.assert_allclose(zb, za, rtol=1e-3, atol=1e-9 * scale)
-    # chunked vs whole-level kernel: identical inputs, identical plane
-    # arithmetic — exact equality
-    np.testing.assert_array_equal(zc, zb)
